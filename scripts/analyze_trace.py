@@ -4,7 +4,7 @@
 Usage:
   python scripts/analyze_trace.py TRACE_DIR HLO_FILE [--top 30]
 
-Aggregates device time from the "XLA Ops" line of the device plane,
+Aggregates the kernel time on the GPU device planes of the trace,
 maps each instruction to its HLO op_name scope (which propagator family
 / engine phase it came from), and prints:
   - total device time and the FIXPOINT/SEARCH split,
@@ -12,14 +12,14 @@ maps each instruction to its HLO op_name scope (which propagator family
   - time grouped by scope component (element / linear / member / groups
     / select / branch ...).
 
-Runs entirely offline - no TPU needed once the trace exists.
+HLO_FILE is the optimized HLO of the traced program
+(`compiled.as_text()`). Runs offline once the trace exists.
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import glob
-import re
 import sys
 import os
 
@@ -27,7 +27,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from turbo_tpu.solver.profile_split import (  # noqa: E402
-    hlo_scope_sets, event_instr_name, _SUFFIX_RE, _OPNAME_RE)
+    _OPNAME_RE, _SUFFIX_RE, device_kernel_events, split)
 
 
 def main():
@@ -41,7 +41,6 @@ def main():
 
     with open(args.hlo_file) as f:
         hlo = f.read()
-    inside, outside, base_class = hlo_scope_sets(hlo)
 
     opname = {}
     for line in hlo.splitlines():
@@ -50,38 +49,20 @@ def main():
             opname[m.group(1)] = m.group(2)
 
     dur = collections.Counter()
-    async_dur = collections.Counter()
-    for f in glob.glob(args.trace_dir + "/**/*.xplane.pb", recursive=True):
-        pd = ProfileData.from_file(f)
-        for plane in pd.planes:
-            if not plane.name.startswith("/device:"):
-                continue
-            for line in plane.lines:
-                tgt = (dur if line.name == "XLA Ops"
-                       else async_dur if line.name == "Async XLA Ops"
-                       else None)
-                if tgt is None:
-                    continue
-                for e in line.events:
-                    if e.duration_ns > 0:
-                        tgt[event_instr_name(e.name)] += e.duration_ns
+    traces = [ProfileData.from_file(f) for f in glob.glob(
+        args.trace_dir + "/**/*.xplane.pb", recursive=True)]
+    planes = [p for t in traces for p in t.planes]
+    for name, ns in device_kernel_events(planes):
+        dur[name] += ns
 
     total = sum(dur.values())
-    fix = other = unatt = 0
-    for name, ns in dur.items():
-        cls = (True if name in inside else False if name in outside
-               else base_class.get(_SUFFIX_RE.sub("", name)))
-        if cls is True:
-            fix += ns
-        elif cls is False:
-            other += ns
-        else:
-            unatt += ns
-    print(f"total device time  : {total/1e6:.2f} ms "
-          f"(+ {sum(async_dur.values())/1e6:.2f} ms async/overlapped)")
+    fix, other, unatt = split(planes, hlo)
+    print(f"total device time  : {total/1e6:.2f} ms")
     print(f"fixpoint           : {fix/1e6:.2f} ms ({100.0*fix/max(total,1):.1f}%)")
     print(f"search/other       : {other/1e6:.2f} ms ({100.0*other/max(total,1):.1f}%)")
-    print(f"unattributed       : {unatt/1e6:.2f} ms ({100.0*unatt/max(total,1):.1f}%)")
+    print(f"unattributed       : {unatt/1e6:.2f} ms ({100.0*unatt/max(total,1):.1f}%)"
+          "  (command_buffer events: trace with "
+          "XLA_FLAGS=--xla_gpu_enable_command_buffer= to split them)")
 
     def scope_of(name):
         meta = opname.get(name) or opname.get(_SUFFIX_RE.sub("", name), "")
@@ -110,9 +91,6 @@ def main():
         print(f"  {ns/1e6:10.2f} ms  {100.0*ns/max(total,1):5.1f}%  "
               f"{name[:44]:44s}  {meta[-70:]}")
 
-    print(f"\ntop 10 async (overlapped) ops:")
-    for name, ns in async_dur.most_common(10):
-        print(f"  {ns/1e6:10.2f} ms  {name[:60]}")
     return 0
 
 

@@ -136,20 +136,16 @@ def main():
                           f"invalid={len(invalid)}\n{text}\n", flush=True)
         if ro.status not in ("optimal", "unsat"):
             continue  # oracle timeout: no golden to compare
-        # Fuzz the fixpoint variants too: whichever the chip A/B
-        # promotes to default must have the same soundness mileage as
-        # the current ac1/dv path. fp_layout only exists on the ac1
-        # path (wac1 ignores it), so sample the 3 real configurations;
-        # the MXU one-hot gather mode is an orthogonal coin flip on the
-        # ac1 paths (wac1's scatter-meet loop never uses it).
+        # Fuzz the fixpoint variants too: each must have the same
+        # soundness mileage as the default path. fp_layout only exists
+        # on the ac1 path (wac1 ignores it), so sample the 3 real
+        # configurations.
         fp_mode, fp_layout = [("fixpoint", "dv"), ("fixpoint", "vd"),
                               ("wac1", "dv")][int(rng.integers(0, 3))]
-        gather = ("onehot" if fp_mode == "fixpoint"
-                  and rng.integers(0, 2) else "take")
         s = BatchedSolver(tnf, EngineConfig(
             num_dives=4, subproblems_power=int(rng.integers(2, 6)),
             max_depth=0, fp_max_iters=int(rng.choice([8, 16, 10000])),
-            fp_mode=fp_mode, fp_layout=fp_layout, gather_mode=gather,
+            fp_mode=fp_mode, fp_layout=fp_layout,
             # EPS table axis: the precomputed dive tree must agree
             # with the in-engine dive path on every random model.
             use_table=bool(rng.integers(0, 2))))

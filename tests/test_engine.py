@@ -18,25 +18,30 @@ from turbo_tpu.solver.oracle import PropTable, solve as oracle_solve
 from turbo_tpu.solver.plan import build_plan
 from turbo_tpu.solver.propagate_jax import PropagatorKernels
 
-GOLDEN = [
-    ("minimize_unconstrained", 1),
-    ("maximize_unconstrained", 2),
-    ("reified_in", 1),
-    ("bug1", -10),
-    ("bug3", 0),
-    ("bug5", 2),
-    ("sudoku_opt2", -2),
-    ("sudoku_opt2_max", 2),
-    ("sudoku_opt3", -2),
-    ("sudoku_opt3b", 2),
-    ("sudoku_opt4", -16),
-    ("sudoku_opt4b", 0),
-]
+from instances import GOLOMB8, MODELS, OPTIMUM, golomb_fzn
+
+GOLDEN = sorted((name, opt) for name, (_, opt) in MODELS.items())
+
+
+def model(name):
+    """Compiled TNF of one of the in-repo MODELS."""
+    return compile_model(parse_fzn_text(MODELS[name][0]))
+
+
+def plan_root(tnf, plan):
+    """The plan's root store (after its root fixpoint) in TNF ids: the
+    store the plan's propagators are complete for (it drops the ones
+    already entailed there)."""
+    lb, ub = tnf.lb0.copy(), tnf.ub0.copy()
+    act = plan.inv_perm >= 0
+    lb[plan.inv_perm[act]] = plan.lb0[act]
+    ub[plan.inv_perm[act]] = plan.ub0[act]
+    return lb, ub
 
 
 @pytest.mark.parametrize("name,expected", GOLDEN, ids=[c[0] for c in GOLDEN])
-def test_engine_golden(name, expected, bench_dir):
-    tnf = compile_model(parse_fzn(str(bench_dir / "test_data" / f"{name}.fzn")))
+def test_engine_golden(name, expected):
+    tnf = model(name)
     s = BatchedSolver(tnf, EngineConfig(num_dives=8, subproblems_power=5,
                                         max_depth=64))
     r = s.solve(timeout_s=120, chunk=16)
@@ -45,12 +50,12 @@ def test_engine_golden(name, expected, bench_dir):
 
 
 @pytest.mark.slow
-def test_engine_golden_sudoku_p0(bench_dir):
-    tnf = compile_model(parse_fzn(str(bench_dir / "test_data" / "sudoku_opt_p0.fzn")))
+def test_engine_golden_golomb8():
+    tnf = compile_model(parse_fzn(GOLOMB8))
     s = BatchedSolver(tnf, EngineConfig(num_dives=16, subproblems_power=6,
                                         max_depth=128))
     r = s.solve(timeout_s=240, chunk=32)
-    assert r.status == "optimal" and r.objective == -3
+    assert r.status == "optimal" and r.objective == OPTIMUM[8]
 
 
 def test_engine_matches_oracle_on_random_models():
@@ -84,8 +89,7 @@ def test_engine_matches_oracle_on_random_models():
 def test_jax_propagation_matches_numpy():
     """Fixpoint of the JAX kernels == fixpoint of the numpy oracle rules
     on randomly narrowed stores of a real instance."""
-    tnf = compile_model(parse_fzn(
-        "/root/reference/benchmarks/test_data/sudoku_opt3.fzn"))
+    tnf = compile_model(parse_fzn(GOLOMB8))
     plan = build_plan(tnf)
     kernels = PropagatorKernels(plan)
     table = PropTable(tnf)
@@ -93,10 +97,11 @@ def test_jax_propagation_matches_numpy():
 
     D = 4
     Vr = tnf.num_vars
+    lb_root, ub_root = plan_root(tnf, plan)
     lbs, ubs = [], []
     for d in range(D):
-        lb = tnf.lb0.copy()
-        ub = tnf.ub0.copy()
+        lb = lb_root.copy()
+        ub = ub_root.copy()
         # randomly narrow some vars (soundly: sub-intervals)
         for v in rng.choice(Vr, size=5, replace=False):
             if lb[v] < ub[v]:
@@ -141,10 +146,10 @@ def test_jax_propagation_matches_numpy():
                                           err_msg=f"dive {d} ub")
 
 
-def test_sharded_matches_single(bench_dir):
+def test_sharded_matches_single():
     from turbo_tpu.parallel.mesh import ShardedSolver
 
-    tnf = compile_model(parse_fzn(str(bench_dir / "test_data" / "sudoku_opt4.fzn")))
+    tnf = model("golomb6")
     s1 = BatchedSolver(tnf, EngineConfig(num_dives=8, subproblems_power=6,
                                          max_depth=64))
     r1 = s1.solve(timeout_s=120, chunk=16)
@@ -152,7 +157,7 @@ def test_sharded_matches_single(bench_dir):
                                          max_depth=64))
     r8 = s8.solve(timeout_s=120, chunk=16)
     assert r1.status == r8.status == "optimal"
-    assert r1.objective == r8.objective == -16
+    assert r1.objective == r8.objective == OPTIMUM[6]
 
 
 def test_satisfaction_mode():
@@ -193,13 +198,13 @@ def test_unsat_detected():
     assert r.status == "unsat"
 
 
-def test_solutions_pass_independent_checker(bench_dir):
+def test_solutions_pass_independent_checker():
     """Engine solutions must satisfy the ORIGINAL FlatZinc constraints
     (independent evaluator, no propagator code involved)."""
     from turbo_tpu.utils.checker import check_solution
 
-    for name in ["sudoku_opt4", "bug1", "reified_in"]:
-        m = parse_fzn(str(bench_dir / "test_data" / f"{name}.fzn"))
+    for name in ["golomb6", "times_div", "reified_in", "element"]:
+        m = parse_fzn_text(MODELS[name][0])
         tnf = compile_model(m)
         s = BatchedSolver(tnf, EngineConfig(num_dives=8, subproblems_power=5,
                                             max_depth=64))
@@ -284,8 +289,7 @@ def test_element_engine_end_to_end():
 def test_checkpoint_resume(tmp_path):
     from turbo_tpu.solver.checkpoint import load_state, save_state
 
-    tnf = compile_model(parse_fzn(
-        "/root/reference/benchmarks/test_data/sudoku_opt4.fzn"))
+    tnf = model("golomb6")
     s = BatchedSolver(tnf, EngineConfig(num_dives=8, subproblems_power=6,
                                         max_depth=64))
     path = str(tmp_path / "ckpt.pkl")
@@ -301,7 +305,7 @@ def test_checkpoint_resume(tmp_path):
     _np.testing.assert_array_equal(jax.device_get(st.nodes),
                                    jax.device_get(st2.nodes))
     r = s.solve(timeout_s=120, chunk=8, checkpoint_path=path)
-    assert r.status == "optimal" and r.objective == -16
+    assert r.status == "optimal" and r.objective == OPTIMUM[6]
     # Same SHAPES but different plan DATA must be rejected (v4): a
     # -shave run can tighten lb0/ub0 without changing any shape, and
     # resuming lane state against different root bounds remaps the
@@ -365,18 +369,18 @@ def test_jax_linear_kernel_matches_numpy():
             np.testing.assert_array_equal(ju[d][plan.perm][kept], nu[kept])
 
 
-def test_phase_timers(bench_dir):
+def test_phase_timers():
     """Per-phase timer parity (statistics.hpp:13-29): timers populate,
     are non-negative, and the fixpoint/search split covers the measured
     device time."""
-    tnf = compile_model(parse_fzn(str(bench_dir / "test_data" / "sudoku_opt3.fzn")))
+    tnf = model("golomb5")
     s = BatchedSolver(tnf, EngineConfig(num_dives=8, subproblems_power=4,
                                         max_depth=128, fp_max_iters=16))
     r = s.solve(timeout_s=60.0)
     assert r.status == "optimal"
     assert r.num_blocks == 8
     assert r.num_blocks_done == 8
-    assert r.variables == tnf.num_vars
+    assert r.variables == tnf.num_vars - int(s.plan.dropped.sum())
     assert r.propagators > 0
     for f in ("search_time", "fixpoint_time", "dive_time",
               "transfer_cpu2gpu_time", "transfer_gpu2cpu_time",
@@ -409,12 +413,12 @@ def test_phase_timers_attribution():
     assert t.first_idle == 0.0
 
 
-def test_rebalance_ranges_unit(bench_dir):
+def test_rebalance_ranges_unit():
     """Host-side EPS redistribution: a dry shard steals the upper half
     of the richest shard's remaining range and reseeds its lanes from
     the root store; ranges stay disjoint."""
     from turbo_tpu.parallel.mesh import ShardedSolver, rebalance_ranges
-    tnf = compile_model(parse_fzn(str(bench_dir / "test_data" / "sudoku_opt3.fzn")))
+    tnf = model("golomb5")
     # use_table=False: this unit test exercises the DIVE-mode reseed
     # (the table-mode twin lives in test_eps_table.py).
     s = ShardedSolver(tnf, EngineConfig(num_dives=4, subproblems_power=8,
@@ -459,25 +463,25 @@ def test_rebalance_ranges_unit(bench_dir):
     assert moves2 == 0
 
 
-def test_sharded_solve_with_redistribution(bench_dir):
+def test_sharded_solve_with_redistribution():
     """End-to-end: redistribution preserves correctness and
     exhaustiveness on a golden instance."""
     from turbo_tpu.parallel.mesh import ShardedSolver
-    tnf = compile_model(parse_fzn(str(bench_dir / "test_data" / "sudoku_opt3.fzn")))
+    tnf = model("golomb5")
     s = ShardedSolver(tnf, EngineConfig(num_dives=2, subproblems_power=7,
                                         max_depth=64, fp_max_iters=16))
     r = s.solve(timeout_s=120.0)
-    assert r.status == "optimal" and r.objective == -2
+    assert r.status == "optimal" and r.objective == OPTIMUM[5]
     assert r.eps_redistributions >= 0
 
 
-def test_sharded_checkpoint_resume(tmp_path, bench_dir):
+def test_sharded_checkpoint_resume(tmp_path):
     """Cross-run checkpoint/resume through the sharded (multi) arch:
     the global sharded state round-trips with mesh sharding restored."""
     from turbo_tpu.parallel.mesh import ShardedSolver
     from turbo_tpu.solver.checkpoint import load_state, save_state
 
-    tnf = compile_model(parse_fzn(str(bench_dir / "test_data" / "sudoku_opt4.fzn")))
+    tnf = model("golomb6")
     s = ShardedSolver(tnf, EngineConfig(num_dives=2, subproblems_power=6,
                                         max_depth=64))
     path = str(tmp_path / "ckpt.pkl")
@@ -493,17 +497,16 @@ def test_sharded_checkpoint_resume(tmp_path, bench_dir):
     np.testing.assert_array_equal(jax.device_get(st.nodes),
                                   jax.device_get(st2.nodes))
     r = s.solve(timeout_s=120, chunk=8, checkpoint_path=path)
-    assert r.status == "optimal" and r.objective == -16
+    assert r.status == "optimal" and r.objective == OPTIMUM[6]
 
 
-def test_hybrid_goldens(bench_dir):
+def test_hybrid_goldens():
     """Hybrid arch (host search + batched device propagation) proves
     the same optima as the engine (hybrid_dive_and_solve.hpp parity)."""
     from turbo_tpu.solver.hybrid import HybridSolver
-    for name, expected in (("sudoku_opt3", -2), ("bug1", -10),
-                           ("sudoku_opt4", -16)):
-        tnf = compile_model(parse_fzn(
-            str(bench_dir / "test_data" / f"{name}.fzn")))
+    for name in ("golomb5", "times_div", "golomb6"):
+        expected = MODELS[name][1]
+        tnf = model(name)
         s = HybridSolver(tnf, EngineConfig(num_dives=4, subproblems_power=4,
                                            max_depth=256, fp_max_iters=64))
         r = s.solve(timeout_s=120.0)
@@ -513,7 +516,7 @@ def test_hybrid_goldens(bench_dir):
         assert r.fixpoint_time >= 0.0
 
 
-def test_hybrid_satisfaction_and_unsat(bench_dir):
+def test_hybrid_satisfaction_and_unsat():
     from turbo_tpu.solver.hybrid import HybridSolver
     tnf = compile_model(parse_fzn_text("""
 var 1..3: x; var 1..3: y;
@@ -672,13 +675,12 @@ def test_shard_partition_covers_all_subproblems():
             assert len(live_all) == len(set(live_all))
 
 
-def test_sharded_tiny_sub_still_sat(bench_dir):
-    # End-to-end version of the ADVICE scenario: 8 virtual devices with
-    # -sub 1 on satisfiable pennies5 must not report UNSAT.
+def test_sharded_tiny_sub_still_sat():
+    # End-to-end version of the empty-range scenario: 8 virtual devices
+    # with -sub 1 on a satisfiable model must not report UNSAT.
     from turbo_tpu.parallel.mesh import ShardedSolver
 
-    tnf = compile_model(parse_fzn(
-        str(bench_dir / "test_data" / "pennies5.fzn")))
+    tnf = model("golomb5")
     s = ShardedSolver(tnf, EngineConfig(num_dives=2, subproblems_power=1,
                                         max_depth=64))
     r = s.solve(timeout_s=120, chunk=8)
@@ -691,8 +693,7 @@ def test_wac1_fixpoint_matches_numpy():
     reach the same fixpoint as the numpy oracle rules; it may only
     detect MORE bottoms than the bucketed AC-1 (it also meets into
     fixed singleton slots, like the reference's tell)."""
-    tnf = compile_model(parse_fzn(
-        "/root/reference/benchmarks/test_data/sudoku_opt3.fzn"))
+    tnf = compile_model(parse_fzn(GOLOMB8))
     plan = build_plan(tnf)
     kernels = PropagatorKernels(plan)
     table = PropTable(tnf)
@@ -700,10 +701,11 @@ def test_wac1_fixpoint_matches_numpy():
 
     D = 4
     Vr = tnf.num_vars
+    lb_root, ub_root = plan_root(tnf, plan)
     lbs, ubs = [], []
     for d in range(D):
-        lb = tnf.lb0.copy()
-        ub = tnf.ub0.copy()
+        lb = lb_root.copy()
+        ub = ub_root.copy()
         for v in rng.choice(Vr, size=5, replace=False):
             if lb[v] < ub[v]:
                 lo = rng.integers(lb[v], ub[v] + 1)
@@ -748,15 +750,14 @@ def test_wac1_fixpoint_matches_numpy():
 def test_engine_wac1_end_to_end():
     """-fp wac1 end to end: same optimum as ac1, different (smaller)
     outer iteration counts."""
-    tnf = compile_model(parse_fzn(
-        "/root/reference/benchmarks/test_data/sudoku_opt4.fzn"))
+    tnf = model("golomb6")
     base = dict(num_dives=8, subproblems_power=5, max_depth=64)
     r_ac1 = BatchedSolver(tnf, EngineConfig(**base)).solve(
         timeout_s=120, chunk=16)
     r_wac = BatchedSolver(tnf, EngineConfig(fp_mode="wac1", **base)).solve(
         timeout_s=120, chunk=16)
     assert r_ac1.status == r_wac.status == "optimal"
-    assert r_ac1.objective == r_wac.objective == -16
+    assert r_ac1.objective == r_wac.objective == OPTIMUM[6]
     assert r_wac.fixpoint_iterations != r_ac1.fixpoint_iterations
 
 
@@ -773,10 +774,10 @@ def test_auto_num_dives_occupancy_analog():
     547): big working sets get fewer lanes, small ones more, always a
     power of two in [64, 1024]."""
     from turbo_tpu.solver.plan import auto_num_dives
-    wp = compile_model(parse_fzn(
-        "/root/reference/benchmarks/example_wordpress7_500.fzn"))
-    tr = compile_model(parse_fzn("/root/reference/benchmarks/trains15.fzn"))
-    dw, dt = auto_num_dives(wp), auto_num_dives(tr)
+    from instances import GOLOMB13
+    small = compile_model(parse_fzn(GOLOMB8))
+    big = compile_model(parse_fzn(GOLOMB13))
+    dw, dt = auto_num_dives(small), auto_num_dives(big)
     assert 256 <= dw <= 1024
     assert 64 <= dt <= dw
     assert dw & (dw - 1) == 0 and dt & (dt - 1) == 0
@@ -786,10 +787,8 @@ def test_transposed_fixpoint_matches_dv():
     """fixpoint_t on (V, D) planes must equal fixpoint on (D, V) planes
     exactly (same sweeps, same stores), across instances exercising the
     bytecode, element, membership, and linear kernel families."""
-    for path in ("test_data/sudoku_opt3.fzn", "test_data/pat1.fzn",
-                 "test_data/reified_in.fzn"):
-        tnf = compile_model(parse_fzn(
-            f"/root/reference/benchmarks/{path}"))
+    for path in ("golomb6", "element", "reified_in", "linear_reif"):
+        tnf = model(path)
         plan = build_plan(tnf)
         kernels = PropagatorKernels(plan)
         rng = np.random.default_rng(7)
@@ -811,95 +810,51 @@ def test_transposed_fixpoint_matches_dv():
         np.testing.assert_array_equal(np.asarray(ai), np.asarray(ti), path)
 
 
-def test_engine_vd_layout_matches_dv(bench_dir):
+def test_engine_vd_layout_matches_dv():
     """The vd fixpoint layout must not change search results."""
-    tnf = compile_model(parse_fzn(
-        str(bench_dir / "test_data" / "sudoku_opt4.fzn")))
+    tnf = model("golomb6")
     r1 = BatchedSolver(tnf, EngineConfig(
         num_dives=8, subproblems_power=5, max_depth=64)).solve(timeout_s=120)
     r2 = BatchedSolver(tnf, EngineConfig(
         num_dives=8, subproblems_power=5, max_depth=64,
-        fp_layout="vd")).solve(timeout_s=120)
+        fp_layout="dv")).solve(timeout_s=120)
     assert r1.status == r2.status == "optimal"
-    assert r1.objective == r2.objective == -16
+    assert r1.objective == r2.objective == OPTIMUM[6]
     assert r1.nodes == r2.nodes
 
 
-def test_onehot_gather_mode_matches_take(bench_dir):
-    """The MXU one-hot role-gather path (exact dual-half f32 selection
-    matmuls) must be bit-identical to plain gathers — including on
-    stores holding the +-(2^30-1) unbounded-domain sentinels, the
-    values that stress the 16-bit-half exactness argument."""
-    import jax.numpy as jnp
-    from turbo_tpu.solver.plan import build_plan
-    # minimize_unconstrained: unbounded vars => sentinel bounds.
-    for name in ("sudoku_opt3.fzn", "minimize_unconstrained.fzn"):
-        tnf = compile_model(parse_fzn(str(bench_dir / "test_data" / name)))
-        plan = build_plan(tnf)
-        kt = PropagatorKernels(plan, gather_mode="take")
-        ko = PropagatorKernels(plan, gather_mode="onehot")
-        assert ko.gather_mode == "onehot"
-        rng = np.random.default_rng(11)
-        D = 4
-        lb = np.repeat(plan.lb0[None, :], D, 0).astype(np.int32)
-        ub = np.repeat(plan.ub0[None, :], D, 0).astype(np.int32)
-        for d in range(D):
-            for v in rng.choice(plan.V, size=min(6, plan.V),
-                                replace=False):
-                if lb[d, v] < ub[d, v]:
-                    lo = rng.integers(lb[d, v], int(ub[d, v]) + 1)
-                    hi = rng.integers(lo, int(ub[d, v]) + 1)
-                    lb[d, v], ub[d, v] = lo, hi
-        l1, u1 = kt.iteration(jnp.asarray(lb), jnp.asarray(ub))
-        l2, u2 = ko.iteration(jnp.asarray(lb), jnp.asarray(ub))
-        assert np.array_equal(np.asarray(l1), np.asarray(l2)), name
-        assert np.array_equal(np.asarray(u1), np.asarray(u2)), name
-        l3, u3 = kt.iteration_t(jnp.asarray(lb.T), jnp.asarray(ub.T))
-        l4, u4 = ko.iteration_t(jnp.asarray(lb.T), jnp.asarray(ub.T))
-        assert np.array_equal(np.asarray(l3), np.asarray(l4)), name
-        assert np.array_equal(np.asarray(u3), np.asarray(u4)), name
-    # Size gate: a tiny budget must revert to plain gathers, loudly
-    # recorded in the effective mode (and hence the program key).
-    os.environ["TURBO_TPU_ONEHOT_MAX_MB"] = "0.0001"
-    try:
-        kg = PropagatorKernels(plan, gather_mode="onehot")
-        assert kg.gather_mode == "take"
-    finally:
-        del os.environ["TURBO_TPU_ONEHOT_MAX_MB"]
-    # End-to-end: identical search (same tree, same optimum).
-    tnf = compile_model(parse_fzn(
-        str(bench_dir / "test_data" / "sudoku_opt4.fzn")))
-    r1 = BatchedSolver(tnf, EngineConfig(
-        num_dives=8, subproblems_power=5, max_depth=64)).solve(timeout_s=120)
-    r2 = BatchedSolver(tnf, EngineConfig(
-        num_dives=8, subproblems_power=5, max_depth=64,
-        gather_mode="onehot")).solve(timeout_s=120)
-    assert r1.status == r2.status == "optimal"
-    assert r1.objective == r2.objective == -16
-    assert r1.nodes == r2.nodes
-
-
-def test_hot_depth_cold_branch_matches(bench_dir):
+def test_hot_depth_cold_branch_matches():
     """A tiny hot prefix forces the deep-rebuild branch constantly;
     results must be identical to the default."""
-    tnf = compile_model(parse_fzn(
-        str(bench_dir / "test_data" / "sudoku_opt4.fzn")))
+    tnf = model("golomb6")
     r1 = BatchedSolver(tnf, EngineConfig(
         num_dives=8, subproblems_power=5, max_depth=64)).solve(timeout_s=120)
     r2 = BatchedSolver(tnf, EngineConfig(
         num_dives=8, subproblems_power=5, max_depth=64,
         hot_depth=4)).solve(timeout_s=120)
     assert r1.status == r2.status == "optimal"
-    assert r1.objective == r2.objective == -16
+    assert r1.objective == r2.objective == OPTIMUM[6]
     assert r1.nodes == r2.nodes
 
 
-def test_disable_simplify_changes_network_and_keeps_answers(bench_dir):
+def test_disable_simplify_changes_network_and_keeps_answers():
     """-disable_simplify (config.cpp:41) must actually disable the
     simplification passes: the device plan keeps entailed propagators
     and compacted variables, the reported network stats change, and
     the answer stays the same."""
-    tnf = compile_model(parse_fzn(str(bench_dir / "test_data" / "bug5.fzn")))
+    # The root fixpoint fixes b (x <= 10 always holds) and bounds s by
+    # 15, so int_le_reif and int_le(s, 15) are entailed at the root.
+    tnf = compile_model(parse_fzn_text("""
+var 1..5: x :: output_var;
+var 1..5: y :: output_var;
+var bool: b;
+var 0..20: s;
+constraint int_le_reif(x, 10, b);
+constraint int_lin_eq([1, 1, -1], [x, y, s], 0);
+constraint int_le(s, 15);
+constraint int_lin_le([-1, -1], [x, y], -6);
+solve minimize x;
+"""))
     p_on = build_plan(tnf)
     p_off = build_plan(tnf, disable_simplify=True)
     assert p_off.num_real_props > p_on.num_real_props
@@ -910,7 +865,7 @@ def test_disable_simplify_changes_network_and_keeps_answers(bench_dir):
                        disable_simplify=True)
     s = BatchedSolver(tnf, cfg)
     r = s.solve(timeout_s=120, chunk=16)
-    assert r.status == "optimal" and r.objective == 2
+    assert r.status == "optimal" and r.objective == 1
     assert r.propagators == p_off.num_real_props
     s2 = BatchedSolver(tnf, EngineConfig(num_dives=8, subproblems_power=4,
                                          max_depth=64))
@@ -952,14 +907,13 @@ def test_shave_root_cuts_refutable_bound():
     assert (p_both.lb0 == p_off.lb0).all() and (p_both.ub0 == p_off.ub0).all()
 
 
-def test_engine_stats_parity_with_oracle(bench_dir):
+def test_engine_stats_parity_with_oracle():
     """Side-by-side stat fidelity (VERDICT r2 §6): on an exhausted run
     the engine's subproblem accounting must partition the EPS space
     exactly, peakDepth must count dive decisions (the oracle measures
     from the true root, common_solving.hpp:831), and the headline
     results must agree with the sequential oracle."""
-    tnf = compile_model(parse_fzn(str(bench_dir / "test_data" /
-                                      "sudoku_opt3.fzn")))
+    tnf = model("golomb5")
     ro = oracle_solve(tnf, timeout_s=120)
     s = BatchedSolver(tnf, EngineConfig(num_dives=8, subproblems_power=5,
                                         max_depth=64))
@@ -979,34 +933,32 @@ def test_engine_stats_parity_with_oracle(bench_dir):
     assert ro.stats.depth_max > 0
 
 
-def test_tail_resplit_preserves_answers(bench_dir):
+def test_tail_resplit_preserves_answers():
     """EPS tail refinement (round 3): when the subproblem range drains
     and stragglers remain, the engine re-splits them 2^j-finer and
     reseeds. The proof must stay exhaustive with the same optimum, and
     the subproblem accounting must stay in coarse 2^k units."""
-    tnf = compile_model(parse_fzn(str(bench_dir / "test_data" /
-                                      "sudoku_opt_p0.fzn")))
+    tnf = compile_model(parse_fzn_text(golomb_fzn(7)))
     s = BatchedSolver(tnf, EngineConfig(num_dives=32, subproblems_power=5,
                                         max_depth=128))
     r = s.solve(timeout_s=300, chunk=8)
-    assert r.status == "optimal" and r.objective == -3
+    assert r.status == "optimal" and r.objective == OPTIMUM[7]
     assert r.exhaustive
     assert (r.eps_solved_subproblems + r.eps_skipped_subproblems
             == r.eps_num_subproblems == 32)
 
 
-def test_stack_steal_preserves_answers(bench_dir):
+def test_stack_steal_preserves_answers():
     """Post-drain stack stealing (round 3): with D > 2^k the subproblem
     range drains at init, so idle lanes can only be fed by stealing open
     right-branches from straggler stacks. The proof must stay exhaustive
     with the oracle's optimum, stealing must actually engage, and the
     coarse subproblem accounting must stay an exact partition."""
-    tnf = compile_model(parse_fzn(str(bench_dir / "test_data" /
-                                      "sudoku_opt_p0.fzn")))
+    tnf = compile_model(parse_fzn_text(golomb_fzn(7)))
     s = BatchedSolver(tnf, EngineConfig(num_dives=8, subproblems_power=2,
                                         max_depth=128))
     r = s.solve(timeout_s=300, chunk=8)
-    assert r.status == "optimal" and r.objective == -3
+    assert r.status == "optimal" and r.objective == OPTIMUM[7]
     assert r.exhaustive
     assert r.eps_redistributions >= 1
     assert (r.eps_solved_subproblems + r.eps_skipped_subproblems
@@ -1075,8 +1027,7 @@ def test_hybrid_checkpoint_resume(tmp_path):
     restarts) and proves the same optimum."""
     from turbo_tpu.solver.hybrid import HybridSolver
 
-    tnf = compile_model(parse_fzn(
-        "/root/reference/benchmarks/test_data/sudoku_opt4.fzn"))
+    tnf = model("golomb6")
     cfg = EngineConfig(num_dives=4, subproblems_power=5, max_depth=64)
     path = str(tmp_path / "hyb.pkl")
     r1 = HybridSolver(tnf, cfg).solve(timeout_s=300, node_limit=40,
@@ -1086,7 +1037,7 @@ def test_hybrid_checkpoint_resume(tmp_path):
     assert os.path.exists(path)
     r2 = HybridSolver(tnf, cfg).solve(timeout_s=300,
                                       checkpoint_path=path)
-    assert r2.status == "optimal" and r2.objective == -16
+    assert r2.status == "optimal" and r2.objective == OPTIMUM[6]
     # Resumed, not restarted: cumulative counters cover both runs.
     assert r2.nodes > r1.nodes
     # A mismatched configuration must refuse the snapshot (fresh run).
@@ -1122,29 +1073,6 @@ solve :: int_search([x, y], first_fail, indomain_split, complete)
     assert auto_max_depth(plan2) == 10000
 
 
-def test_init_state_cache_key_includes_fp_cap():
-    """Two solvers differing only in fp_max_iters must not share a
-    cached init executable (fp_cap is baked into the program)."""
-    from turbo_tpu.solver.exec_cache import cache_key
-
-    tnf = compile_model(parse_fzn(
-        "/root/reference/benchmarks/test_data/bug1.fzn"))
-    keys = []
-    for cap in (8, 16):
-        s = BatchedSolver(tnf, EngineConfig(num_dives=4,
-                                            subproblems_power=3,
-                                            max_depth=64,
-                                            fp_max_iters=cap))
-        pk = ("init_state", 0, s.num_shards, s.plan.shape_signature,
-              s.plan.data_digest, s.cfg.num_dives, s.cfg.max_depth,
-              s.cfg.fp_max_iters, s.use_table, s.k,
-              bool(getattr(s, "has_eps", False)))
-        keys.append(cache_key(pk))
-        st = s.init_state()
-        assert int(np.asarray(st.fp_cap)[0]) == cap
-    assert keys[0] != keys[1]
-
-
 def test_checkpoint_version_and_fp_cap_override(tmp_path, capsys):
     """Old-format checkpoints are rejected LOUDLY; a restored state
     takes the resuming run's fp cap, not the snapshot's."""
@@ -1152,8 +1080,7 @@ def test_checkpoint_version_and_fp_cap_override(tmp_path, capsys):
 
     from turbo_tpu.solver import checkpoint as ckpt
 
-    tnf = compile_model(parse_fzn(
-        "/root/reference/benchmarks/test_data/bug1.fzn"))
+    tnf = model("golomb5")
     s = BatchedSolver(tnf, EngineConfig(num_dives=4, subproblems_power=3,
                                         max_depth=64, fp_max_iters=16))
     st = s.init_state()
@@ -1214,7 +1141,7 @@ solve maximize x4;
         assert r.nodes < 500, (mode, r.nodes)
 
 
-def test_low_cap_partition_exact_with_steal(bench_dir):
+def test_low_cap_partition_exact_with_steal():
     """Round-4 fuzz finding: at low fixpoint caps, held dive lanes can
     linger inside a subproblem range another lane already counted as
     skipped (its dead subtree covered handed-out subproblems). The
@@ -1222,14 +1149,13 @@ def test_low_cap_partition_exact_with_steal(bench_dir):
     count as total-solved-skipped, NOT as the unique-subp count of the
     non-idle lanes (which double-counts those lanes): solved+skipped
     must partition the space exactly at every cap."""
-    tnf = compile_model(parse_fzn(str(bench_dir / "test_data" /
-                                      "sudoku_opt_p0.fzn")))
+    tnf = model("golomb6")
     for cap in (2, 3, 16):
         s = BatchedSolver(tnf, EngineConfig(
             num_dives=16, fp_max_iters=16, use_table=False,
             fp_cap_auto=False))
         r = s.solve(timeout_s=300, chunk=8, fp_cap=cap)
-        assert r.status == "optimal" and r.objective == -3, cap
+        assert r.status == "optimal" and r.objective == OPTIMUM[6], cap
         assert r.exhaustive, cap
         assert (r.eps_solved_subproblems + r.eps_skipped_subproblems
                 == r.eps_num_subproblems), (
@@ -1237,20 +1163,18 @@ def test_low_cap_partition_exact_with_steal(bench_dir):
             r.eps_num_subproblems)
 
 
-def test_auto_cap_calibration(bench_dir):
+def test_auto_cap_calibration():
     """The live fixpoint-cap sweep (AutoCapCalibrator): on a run long
     enough to finish calibrating, a winner is locked in, the answer is
     exact, and the tree equals the fixed-cap tree (the hold rule keeps
     the search tree the exact AC-1 fixpoint tree at every cap)."""
-    tnf = compile_model(parse_fzn(str(bench_dir / "test_data" /
-                                      "pat12.fzn")))
+    tnf = compile_model(parse_fzn(GOLOMB8))
     s = BatchedSolver(tnf, EngineConfig(num_dives=16, fp_max_iters=16))
     r = s.solve(timeout_s=25, chunk=8)
     assert getattr(s, "last_auto_cap", None) in (2, 3, 4, 8, 16)
-    # pat12's optimum is 13 (test_list.csv); 25 s on CPU is not enough
-    # for the proof, but any incumbent must be a valid bound >= 13.
+    # Any incumbent must be a valid bound >= the known optimum.
     if r.objective is not None:
-        assert r.objective >= 13
+        assert r.objective >= OPTIMUM[8]
     # Explicit override disables calibration.
     s2 = BatchedSolver(tnf, EngineConfig(num_dives=16, fp_max_iters=16))
     r2 = s2.solve(timeout_s=5, chunk=8, fp_cap=4)

@@ -8,22 +8,27 @@ import numpy as np
 import pytest
 
 from turbo_tpu.compile.model import compile_model
-from turbo_tpu.frontend.fzn import parse_fzn
+from turbo_tpu.frontend.fzn import parse_fzn_text
 from turbo_tpu.solver.engine import BatchedSolver, EngineConfig
 
-DATA = "/root/reference/benchmarks/test_data"
+from instances import MODELS, OPTIMUM, golomb_fzn
 
 GOLDENS = [
-    ("sudoku_opt_p0.fzn", -3),
-    ("bug1.fzn", -10),
-    ("sudoku_opt3.fzn", -2),
-    ("pat4.fzn", 6),
+    ("golomb7", OPTIMUM[7]),
+    ("times_div", MODELS["times_div"][1]),
+    ("golomb5", OPTIMUM[5]),
+    ("knapsack", MODELS["knapsack"][1]),
 ]
+
+
+def model(name):
+    text = golomb_fzn(7) if name == "golomb7" else MODELS[name][0]
+    return compile_model(parse_fzn_text(text))
 
 
 @pytest.mark.parametrize("name,expected", GOLDENS)
 def test_table_matches_dive(name, expected):
-    tnf = compile_model(parse_fzn(f"{DATA}/{name}"))
+    tnf = model(name)
     results = {}
     for use_table in (False, True):
         s = BatchedSolver(tnf, EngineConfig(
@@ -45,7 +50,7 @@ def test_table_matches_dive(name, expected):
 
 def test_table_build_accounting():
     """Direct builder check: live + dead covers the shard range."""
-    tnf = compile_model(parse_fzn(f"{DATA}/sudoku_opt4.fzn"))
+    tnf = model("golomb6")
     s = BatchedSolver(tnf, EngineConfig(num_dives=8, subproblems_power=7,
                                         max_depth=64))
     assert s.use_table
@@ -68,7 +73,7 @@ def test_table_mid_dive_solution_seeds_incumbent():
     must seed the incumbent (and solution store) from them."""
     # Unconstrained minimize: the root itself is entailed, so the whole
     # tree collapses during the build and the engine starts solved.
-    tnf = compile_model(parse_fzn(f"{DATA}/minimize_unconstrained.fzn"))
+    tnf = model("minimize_unconstrained")
     s = BatchedSolver(tnf, EngineConfig(num_dives=8, fp_max_iters=16))
     r = s.solve(timeout_s=120, chunk=4)
     assert r.status == "optimal" and r.objective == 1 and r.exhaustive
@@ -78,12 +83,13 @@ def test_table_sharded_mesh():
     """Table mode under shard_map on the 8-device CPU mesh."""
     from turbo_tpu.parallel.mesh import ShardedSolver
 
-    tnf = compile_model(parse_fzn(f"{DATA}/sudoku_opt4.fzn"))
+    tnf = model("golomb6")
     s = ShardedSolver(tnf, EngineConfig(num_dives=4, subproblems_power=7,
                                         max_depth=64))
     assert s.solver.use_table
     r = s.solve(timeout_s=300, chunk=8)
-    assert r.status == "optimal" and r.objective == -16 and r.exhaustive
+    assert r.status == "optimal" and r.objective == OPTIMUM[6]
+    assert r.exhaustive
     assert (r.eps_solved_subproblems + r.eps_skipped_subproblems
             == r.eps_num_subproblems)
 
@@ -113,7 +119,7 @@ def test_rebalance_ranges_table_mode():
 
     from turbo_tpu.parallel.mesh import ShardedSolver, rebalance_ranges
 
-    tnf = compile_model(parse_fzn(f"{DATA}/sudoku_opt3.fzn"))
+    tnf = model("golomb5")
     s = ShardedSolver(tnf, EngineConfig(num_dives=4, subproblems_power=8,
                                         max_depth=64))
     assert s.solver.use_table

@@ -1,5 +1,6 @@
-"""Parser + TNF compiler tests over the reference fixture corpus."""
+"""Parser + TNF compiler tests over the in-repo instances."""
 import glob
+import os
 
 import numpy as np
 import pytest
@@ -8,19 +9,39 @@ from turbo_tpu.frontend.fzn import parse_fzn, parse_fzn_text
 from turbo_tpu.compile.model import compile_model
 from turbo_tpu.core.ops import INF, NINF
 
-ALL_FZN = sorted(glob.glob("/root/reference/benchmarks/**/*.fzn", recursive=True))
-PARSEABLE = [f for f in ALL_FZN if "valve6" not in f]  # valve6 uses set vars
+from instances import MODELS, OPTIMUM, REPO, golomb_fzn
 
 
-@pytest.mark.parametrize("path", PARSEABLE, ids=lambda p: p.split("/")[-1])
-def test_parse_all_fixtures(path):
-    m = parse_fzn(path)
+def _fixtures():
+    """(name, path or None, text) of every in-repo FlatZinc instance."""
+    out = []
+    for path in sorted(glob.glob(os.path.join(REPO, "benchmarks", "**",
+                                              "*.fzn"), recursive=True)):
+        with open(path) as f:
+            out.append((os.path.basename(path), path, f.read()))
+    out += [(f"{name}.fzn", None, text)
+            for name, (text, _) in sorted(MODELS.items())]
+    return out
+
+
+FIXTURES = _fixtures()
+IDS = [f[0] for f in FIXTURES]
+
+
+def _parse(fixture):
+    _, path, text = fixture
+    return parse_fzn(path) if path else parse_fzn_text(text)
+
+
+@pytest.mark.parametrize("fixture", FIXTURES, ids=IDS)
+def test_parse_all_fixtures(fixture):
+    m = _parse(fixture)
     assert m.solve.kind in ("satisfy", "minimize", "maximize")
 
 
-@pytest.mark.parametrize("path", PARSEABLE, ids=lambda p: p.split("/")[-1])
-def test_compile_all_fixtures(path):
-    tnf = compile_model(parse_fzn(path))
+@pytest.mark.parametrize("fixture", FIXTURES, ids=IDS)
+def test_compile_all_fixtures(fixture):
+    tnf = compile_model(_parse(fixture))
     V, P = tnf.num_vars, tnf.num_props
     assert (tnf.lb0 <= tnf.ub0).all() or tnf.root_unsat
     if P:
@@ -82,12 +103,12 @@ def test_cse_dedups_shared_linear_terms():
     assert t1.num_props == t2.num_props
 
 
-@pytest.mark.parametrize("path", PARSEABLE[:12], ids=lambda p: p.split("/")[-1])
-def test_native_parser_matches_python(path):
+@pytest.mark.parametrize("fixture", FIXTURES, ids=IDS)
+def test_native_parser_matches_python(fixture):
     from turbo_tpu.frontend.fzn import parse_fzn, parse_fzn_text
     from turbo_tpu.frontend.native import parse_fzn_native
 
-    text = open(path).read()
+    path, text = fixture[0], fixture[2]
     mp = parse_fzn_text(text, path)
     mn = parse_fzn_native(text, path)
     if mn is None:
@@ -103,48 +124,49 @@ def test_native_parser_matches_python(path):
 
 def test_search_annotation_array_expansion():
     """Search annotations naming a var ARRAY must expand to its
-    elements (pat1's seq_search previously produced empty strategies,
-    degrading search to the default order)."""
-    from turbo_tpu.frontend.fzn import parse_fzn
-    from turbo_tpu.compile.model import compile_model
-    tnf = compile_model(parse_fzn(
-        "/root/reference/benchmarks/test_data/pat1.fzn"))
-    assert len(tnf.strategies) == 3
-    assert len(tnf.strategies[0].var_ids) == 14   # X_INTRODUCED_555_
-    assert len(tnf.strategies[1].var_ids) == 182  # X_INTRODUCED_554_
+    elements, for each int_search of a seq_search (an empty strategy
+    would degrade search to the default order)."""
+    text = golomb_fzn(6).replace(
+        "solve :: int_search(mark, input_order, indomain_min, complete)",
+        "array [1..2] of var int: ends = [x_1, x_5];\n"
+        "solve :: seq_search([int_search(ends, smallest, indomain_min, "
+        "complete), int_search(mark, input_order, indomain_min, "
+        "complete)])")
+    tnf = compile_model(parse_fzn_text(text))
+    assert len(tnf.strategies) == 3  # two annotated + the fallback
+    assert len(tnf.strategies[0].var_ids) == 2
+    assert len(tnf.strategies[1].var_ids) == 6
     assert tnf.strategies[0].var_order == "smallest"
 
 
-def test_pat1_proves_with_annotated_search():
-    from turbo_tpu.frontend.fzn import parse_fzn
-    from turbo_tpu.compile.model import compile_model
+def test_golomb6_proves_with_annotated_search():
     from turbo_tpu.solver.oracle import solve
-    tnf = compile_model(parse_fzn(
-        "/root/reference/benchmarks/test_data/pat1.fzn"))
+    tnf = compile_model(parse_fzn_text(golomb_fzn(6)))
     r = solve(tnf, timeout_s=60)
-    assert r.status == "optimal" and r.objective == 19
+    assert r.status == "optimal" and r.objective == OPTIMUM[6]
     assert r.stats.nodes < 1000
 
 
 def test_unsolved_bugs_fixtures_handled():
-    """The reference's known-bad instances (benchmarks/unsolved_bugs_data)
-    must not crash the frontend/compiler: false.fzn is trivially unsat,
-    bigdom.fzn (huge domains) parses and compiles under the clamped
-    +-2^30 universe, valve6.fzn (raw set VARIABLES, which the reference
-    also cannot represent — its mzn-lib routes sets through nosets.mzn)
-    fails with an explicit diagnostic."""
-    import pytest
-
-    from turbo_tpu.compile.model import compile_model
-    from turbo_tpu.frontend.fzn import FznParseError, parse_fzn
+    """The kinds of instance the reference lists as known-bad must not
+    crash the frontend/compiler: a trivially false model is unsat,
+    huge domains parse and compile under the clamped +-2^30 universe,
+    and raw set VARIABLES (which the reference also cannot represent —
+    its mzn-lib routes sets through nosets.mzn) fail with an explicit
+    diagnostic."""
+    from turbo_tpu.frontend.fzn import FznParseError
     from turbo_tpu.solver.oracle import solve
 
-    base = "/root/reference/benchmarks/unsolved_bugs_data"
-    r = solve(compile_model(parse_fzn(f"{base}/false.fzn")), timeout_s=10)
+    false = "var 1..3: x;\nconstraint int_lt(x, 1);\nsolve satisfy;\n"
+    r = solve(compile_model(parse_fzn_text(false)), timeout_s=10)
     assert r.status == "unsat"
 
-    tnf = compile_model(parse_fzn(f"{base}/bigdom.fzn"))
+    bigdom = ("var -2000000000..2000000000: x :: output_var;\n"
+              "var -2000000000..2000000000: y;\n"
+              "constraint int_lin_le([1, 1], [x, y], 5);\n"
+              "solve minimize x;\n")
+    tnf = compile_model(parse_fzn_text(bigdom))
     assert tnf.num_vars > 0
 
     with pytest.raises(FznParseError):
-        parse_fzn(f"{base}/valve6.fzn")
+        parse_fzn_text("var set of 1..3: s;\nsolve satisfy;\n")

@@ -1,52 +1,40 @@
 """Golden-objective tests for the sequential oracle solver.
 
-The expected bounds come from the reference regression list
-(/root/reference/benchmarks/test_list.csv, harness test_turbo.sh).
-Only instances the Python oracle can finish quickly are asserted to
-optimality; the rest are covered by the batched engine tests.
+The expected optima are those of the in-repo instances
+(tests/instances.py: Golomb rulers with CSPLib prob006's known
+optima, and small hand-written models).
 """
 import pytest
 
-from turbo_tpu.frontend.fzn import parse_fzn
+from turbo_tpu.frontend.fzn import parse_fzn, parse_fzn_text
 from turbo_tpu.compile.model import compile_model
 from turbo_tpu.solver.oracle import solve
 
-FAST_GOLDEN = [
-    ("minimize_unconstrained", 1),
-    ("minimize_unconstrained2", 1),
-    ("maximize_unconstrained", 2),
-    ("maximize_unconstrained2", 2),
-    ("reified_in", 1),
-    ("bug1", -10),
-    ("bug3", 0),
-    ("bug5", 2),
-    ("sudoku_opt2", -2),
-    ("sudoku_opt2_max", 2),
-    ("sudoku_opt3", -2),
-    ("sudoku_opt3b", 2),
-    ("sudoku_opt4", -16),
-    ("sudoku_opt4b", 0),
-    ("pat2", 7),
-]
+from instances import GOLOMB8, MODELS, OPTIMUM, golomb_fzn
+
+FAST_GOLDEN = sorted((name, opt) for name, (_, opt) in MODELS.items()) + [
+    ("golomb7", OPTIMUM[7])]
 
 
 @pytest.mark.parametrize("name,expected", FAST_GOLDEN, ids=[c[0] for c in FAST_GOLDEN])
-def test_golden_objective(name, expected, bench_dir):
-    tnf = compile_model(parse_fzn(str(bench_dir / "test_data" / f"{name}.fzn")))
+def test_golden_objective(name, expected):
+    text = golomb_fzn(7) if name == "golomb7" else MODELS[name][0]
+    tnf = compile_model(parse_fzn_text(text))
     r = solve(tnf, timeout_s=60)
     assert r.status == "optimal"
     assert r.objective == expected
 
 
 @pytest.mark.slow
-def test_golden_sudoku_p0(bench_dir):
-    tnf = compile_model(parse_fzn(str(bench_dir / "test_data" / "sudoku_opt_p0.fzn")))
+def test_golden_golomb8():
+    tnf = compile_model(parse_fzn(GOLOMB8))
     r = solve(tnf, timeout_s=120)
-    assert r.status == "optimal" and r.objective == -3
+    assert r.status == "optimal" and r.objective == OPTIMUM[8]
 
 
-def test_unsat(bench_dir):
-    tnf = compile_model(parse_fzn(str(bench_dir / "unsolved_bugs_data" / "false.fzn")))
+def test_unsat():
+    tnf = compile_model(parse_fzn_text(
+        "var 1..3: x;\nconstraint int_le(x, 0);\nsolve satisfy;\n"))
     r = solve(tnf, timeout_s=10)
     assert r.status == "unsat"
 

@@ -3,12 +3,36 @@ from turbo_tpu.compile.model import compile_model
 from turbo_tpu.solver.oracle import solve
 
 
-def test_cumulative_golden(bench_dir):
-    m = parse_xcsp3(str(bench_dir / "test_data" / "cumulative.xml"))
+CUMULATIVE = """<instance format="XCSP3" type="COP">
+<variables>
+ <array id="s" size="[3]"> 0..6 </array>
+ <var id="e"> 0..9 </var>
+</variables>
+<constraints>
+ <cumulative>
+  <origins> s[] </origins>
+  <lengths> 2 3 2 </lengths>
+  <heights> 2 1 2 </heights>
+  <condition> (le,3) </condition>
+ </cumulative>
+ <intension> le(add(s[0],2),e) </intension>
+ <intension> le(add(s[1],3),e) </intension>
+ <intension> le(add(s[2],2),e) </intension>
+</constraints>
+<objectives><minimize> e </minimize></objectives>
+</instance>"""
+
+
+def test_cumulative_golden(tmp_path):
+    # Tasks 0 and 2 (height 2 each) cannot overlap under capacity 3;
+    # task 1 (height 1) runs beside either: the makespan is 2 + 2 = 4.
+    p = tmp_path / "cumulative.xml"
+    p.write_text(CUMULATIVE)
+    m = parse_xcsp3(str(p))
     tnf = compile_model(m)
     r = solve(tnf, timeout_s=60)
     assert r.status == "optimal"
-    assert r.objective == 0
+    assert r.objective == 4
 
 
 def _solve_xml(tmp_path, xml, engine=False):

@@ -1,10 +1,10 @@
-"""turbo_tpu: a TPU-native FlatZinc constraint solver.
+"""turbo_tpu: a FlatZinc constraint solver in JAX.
 
 A from-scratch reimplementation of the capabilities of ptal/turbo
-(GPU propagate-and-search constraint solver) designed for TPUs:
-interval domains as HBM-resident arrays, AC-1 propagation vectorized
-over (dives x propagators), EPS dive-and-solve as a batched search VM,
-incumbent sharing via all-reduce over ICI.
+(GPU propagate-and-search constraint solver): interval domains as
+device-resident arrays, AC-1 propagation vectorized over
+(dives x propagators), EPS dive-and-solve as a batched search VM,
+incumbent sharing via an all-reduce across devices.
 """
 __version__ = "0.1.0"
 

@@ -3,17 +3,17 @@
 Plays the role of the reference's ``ternarize``/``normalize`` passes
 plus parts of its ``Simplifier`` (equivalence classes over ``=``
 constraints and incremental CSE), see
-/root/reference/include/common_solving.hpp:520-585.  Everything here is
+the reference's include/common_solving.hpp:520-585.  Everything here is
 host-side Python; the output is a set of flat int arrays ready to be
 uploaded to the device.
 
-Design choices (TPU-first, not a translation of lala's ternarize):
+Design choices (batch-first, not a translation of lala's ternarize):
 
 * Constants are interned as singleton variables.
 * Functional results are CSE'd at build time via a ``(op, y, z)`` memo
   (the reference runs i-CSE as a fixpoint pass afterwards; doing it
   during construction is cheaper and catches the dominant duplicates,
-  e.g. repeated linear terms across wordpress constraints).
+  e.g. repeated linear terms across constraints).
 * Variable equalities (``bool2int``, ``int_eq``, reified results, ...)
   use a union-find; propagator operands are remapped through it at
   finalization, so unions may happen at any time during the build.
@@ -72,8 +72,8 @@ class ElementCon:
     The reference receives array_int_element pre-decomposed only at the
     FlatZinc level and ternarizes it into eq/le chains; a dedicated
     vectorized propagator is both stronger (bounds-consistent on idx
-    and res directly) and far cheaper on TPU (dense windowed reductions
-    instead of thousands of reified propagators)."""
+    and res directly) and far cheaper to run batched (dense windowed
+    reductions instead of thousands of reified propagators)."""
     idx: int
     res: int
     values: tuple

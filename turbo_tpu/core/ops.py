@@ -3,7 +3,7 @@
 The reference compiles every FlatZinc constraint into a ternary normal
 form over interval propagators, represented as a bytecode table of
 ``{op, x, y, z}`` entries interpreted by the PIR abstract domain
-(usage at /root/reference/include/common_solving.hpp:738-771; the
+(usage at the reference's include/common_solving.hpp:738-771; the
 domain itself lives in the non-vendored `lala-pc` dependency).  This
 module defines our own op set and the numpy reference semantics of
 each deduction rule (bounds consistency) and entailment check.  The

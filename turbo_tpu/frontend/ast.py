@@ -2,7 +2,7 @@
 
 Mirrors the information surfaced by the reference frontend
 (`lala-parsing`'s ``parse_flatzinc``, used at
-/root/reference/include/common_solving.hpp:404-417): variable
+the reference's include/common_solving.hpp:404-417): variable
 declarations with interval or sparse domains, parameter arrays,
 constraint items, search annotations and the solve item, plus the
 output annotations (``output_var`` / ``output_array``) consumed by

@@ -1,7 +1,7 @@
 """FlatZinc parser.
 
 Covers the FlatZinc surface exercised by the reference fixture corpus
-(see /root/reference/benchmarks; builtin histogram in SURVEY.md §2a):
+(the reference's benchmarks/; builtin histogram in SURVEY.md §2a):
 variable/array declarations (interval, sparse-set and bool domains),
 parameter arrays, constraint items with ``defines_var`` annotations,
 ``output_var``/``output_array`` annotations, and solve items with

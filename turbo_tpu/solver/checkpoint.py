@@ -3,7 +3,7 @@
 The reference has no cross-run checkpointing (SURVEY.md §5: within-run
 snapshot/restore only). Because this engine's entire search state is a
 flat pytree of arrays (SearchState), saving and resuming a run is
-nearly free — useful for preemptible TPU jobs and long proofs.
+nearly free — useful for preemptible jobs and long proofs.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ from .engine import BatchedSolver, SearchState
 #     different subtrees, silently breaking exhaustiveness.
 # v5: SearchState gained the EPS subproblem-root table (tab_*); payload
 #     gained num_sub_total (k pins the table shape and the bit-path
-#     space) and `extras` (resplit/steal accounting freeze, ADVICE r3:
+#     space) and `extras` (resplit/steal accounting freeze:
 #     a resumed run must keep reporting coarse 2^k subproblem units).
 FORMAT_VERSION = 5
 

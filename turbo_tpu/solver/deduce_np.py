@@ -1,11 +1,11 @@
 """Vectorized numpy interval deduction/entailment rules for TNF bytecodes.
 
-This is the semantics oracle for the JAX/TPU engine: the same bounds-
+This is the semantics oracle for the JAX engine: the same bounds-
 consistency rules the reference's PIR domain implements in CUDA
 (`deduce(i)` / `ask(i)` usage at common_solving.hpp:738-771), written
-as numpy array ops over whole op-groups.  The TPU engine in
-`turbo_tpu.solver.propagate` mirrors these rules; tests cross-check the
-two on random stores.
+as numpy array ops over whole op-groups.  The device kernels in
+`turbo_tpu.solver.propagate_jax` mirror these rules; `solver.parity`
+and the tests cross-check the two on random stores.
 """
 from __future__ import annotations
 

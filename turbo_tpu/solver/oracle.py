@@ -9,7 +9,7 @@ DFS with left-child-first exploration matching the reference's
 LightBranch child ordering (barebones_dive_and_solve.hpp:355-404).
 
 Used both as a usable solver backend and as the semantics oracle that
-the batched TPU engine is differentially tested against (SURVEY.md §4:
+the batched device engine is differentially tested against (SURVEY.md §4:
 the reference's cpu-vs-gpu oracle pattern).
 """
 from __future__ import annotations

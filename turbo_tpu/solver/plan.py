@@ -1,4 +1,4 @@
-"""Host-side device plan: TNF -> static arrays for the batched TPU engine.
+"""Host-side device plan: TNF -> static arrays for the batched engine.
 
 This plays the role of the reference's root preprocessing + memory
 configuration (common_solving.hpp:520-585 root fixpoint / entailed-
@@ -10,8 +10,8 @@ constraint elimination, memory_gpu.hpp MemoryConfig):
   fixed vars) sit at the tail and are excluded from the incidence
   structure, and (b) active variables are grouped into power-of-two
   degree buckets, giving the propagation kernel contiguous
-  gather+reduce segments instead of scatters — the TPU-first
-  replacement for the GPU's atomic scatter updates.
+  gather+reduce segments instead of scatters, in place of the
+  reference's atomic scatter updates.
 
 Shape canonicalization: every dimension that reaches the device
 (variable count, per-op propagator counts, bucket rows/widths,
@@ -19,7 +19,7 @@ strategy list lengths) is padded to quantized sizes, and all seven op
 groups always exist.  Combined with the engine keeping instance
 scalars (objective id, subproblem power, ...) as traced data, the
 compiled XLA program depends only on the quantized shape signature —
-so one (slow) TPU compile is reused across instances and runs.
+so one compile is reused across instances and runs.
 
 The propagation engine works entirely in permuted ids; results are
 mapped back through ``inv_perm`` for output.
@@ -210,19 +210,19 @@ class Plan:
 
 def auto_num_dives(tnf: Tnf, budget_bytes: Optional[int] = None,
                    lo: int = 64, hi: int = 1024) -> int:
-    """TPU analog of the reference's occupancy-based default block count.
+    """Analog of the reference's occupancy-based default block count.
 
     With ``-or 0`` (the reference's config.hpp:74 default) Turbo sizes
     its grid as max_blocks_per_sm * num_SMs from the CUDA occupancy API
     (configure_gpu_barebones, barebones_dive_and_solve.hpp:527-547) and
-    clamps by a global-memory budget (barebones:557-585).  The TPU
-    equivalent of "occupancy" is the propagation sweep's per-iteration
-    working set vs the chip's fast-memory scale: lanes are free until
-    the sweep's tensors outgrow the bandwidth/compile budget, after
-    which more dives only add latency.  Pick the largest power-of-two D
-    whose estimated per-sweep footprint fits the budget (HBM-streaming
-    scale, not VMEM residency: the element-table window masks (D,E,T)
-    dominate real instances and are streamed).
+    clamps by a global-memory budget (barebones:557-585).  Here the
+    analog of "occupancy" is the propagation sweep's per-iteration
+    working set: lanes are free until the sweep's tensors outgrow the
+    budget, after which more dives only add latency.  Pick the largest
+    power-of-two D whose estimated per-sweep footprint fits the budget
+    (a device-memory streaming scale: the element-table window masks
+    (D,E,T) dominate real instances and are streamed). The budget is
+    not yet derived from a GPU measurement.
 
     The per-dive estimate counts the store planes (2V), the six
     consolidated role gathers (18P), candidate planes (~8P), and the
@@ -246,10 +246,9 @@ def auto_num_dives(tnf: Tnf, budget_bytes: Optional[int] = None,
 
 
 # Root-shaving limits. All DETERMINISTIC functions of the instance —
-# no wall-clock budget: warm_goldens must build byte-identical plans
-# to the regression run (shaved bounds feed Plan.data_digest, which
-# keys the executable cache), so the probe schedule may depend only on
-# the model, never on machine speed.
+# no wall-clock budget: the same model must always build the same plan
+# (shaved bounds feed Plan.data_digest), so the probe schedule may
+# depend only on the model, never on machine speed.
 SHAVE_ROUNDS = 2
 SHAVE_PROBE_ITERS = 12
 SHAVE_MAX_PROBES_PER_ROUND = 4096   # 2 * unfixed vars
@@ -406,8 +405,8 @@ def build_plan(tnf: Tnf, max_bucket_k: int = 64,
     active = ~singleton
 
     # Power-of-two K ladder from 2: balances combine padding against
-    # the number of bucket gather ops (each distinct gather costs real
-    # compile time on this TPU toolchain).
+    # the number of bucket gather ops (each distinct gather adds
+    # compile time).
     Ks = [2]
     k = 4
     while k < max_bucket_k:

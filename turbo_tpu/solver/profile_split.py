@@ -1,4 +1,4 @@
-"""Measured FIXPOINT/SEARCH timer attribution (statistics.hpp:83-130).
+"""FIXPOINT/SEARCH attribution of a device trace (statistics.hpp:83-130).
 
 The reference brackets its solve phases with per-block device clocks
 (TIMEPOINT, barebones_dive_and_solve.hpp:615-618). Our step is one
@@ -8,31 +8,30 @@ fused XLA program, so instead:
      every HLO instruction born there carries
      ``metadata={op_name=".../fixpoint/..."}`` through XLA's pipeline
      (fusions inherit a representative constituent's op_name);
-  2. this module runs a few chunks under ``jax.profiler.trace``,
-     aggregates per-op device durations from the xplane, and splits
-     them by that scope marker.
+  2. this module sums the durations of the kernels on the GPU device
+     planes (``/device:GPU:N``) of a ``jax.profiler`` trace and splits
+     them by that scope marker (``scripts/analyze_trace.py``).
 
-The result is a *measured* fixpoint fraction of device time; the
-regression fit in ``timers.PhaseTimers`` remains only as the fallback
-when profiling is unavailable (e.g. a deserialized executable without
-HLO text, or a backend whose profiler exports no per-op events).
+Each GPU kernel event carries the HLO instruction it was launched for
+in its ``hlo_op`` stat; the event name itself is the kernel's name.
+XLA runs the step's while loops as CUDA command buffers (graphs) by
+default, and a whole captured region then shows as ONE event whose
+``hlo_op`` is ``command_buffer``: it is reported as unattributed. A
+per-kernel split needs a trace taken with command buffers off
+(``XLA_FLAGS=--xla_gpu_enable_command_buffer=``), which changes what is
+measured, so the solve loop does not trace itself; its timers keep the
+regression fit of ``timers.PhaseTimers``.
 
-Empirical notes (CPU PJRT): executed-thunk events live on
-``/host:CPU`` plane lines named ``tf_XLA*`` and carry ``hlo_op`` /
-``hlo_module`` stats; runtime thunk names can drift from
-``compiled.as_text()`` names by a numeric suffix (``dot_general.0`` in
-text vs ``dot_general.1`` at runtime), so matching falls back from the
-exact instruction name to its unsuffixed base when the base is
-unambiguous (all same-base instructions on one side of the scope).
+Runtime instruction names can drift from ``compiled.as_text()`` names
+by a numeric suffix (``fusion.3`` in text vs ``fusion.4`` at runtime),
+so matching falls back from the exact instruction name to its
+unsuffixed base when the base is unambiguous (all same-base
+instructions on one side of the scope).
 """
 from __future__ import annotations
 
-import glob
-import os
 import re
-import shutil
-import tempfile
-from typing import Optional
+from typing import Iterable, Optional, Tuple
 
 _OPNAME_RE = re.compile(
     r'^\s*(?:ROOT\s+)?%?([A-Za-z0-9_.\-]+)\s*=.*'
@@ -40,21 +39,18 @@ _OPNAME_RE = re.compile(
 
 _SUFFIX_RE = re.compile(r'(?:\.\d+|_\d+)+$')
 
+# Timeline lines that a trace viewer derives from the kernel events;
+# counting them beside the stream lines would count every kernel twice.
+_DERIVED_LINES = ("XLA Modules", "XLA Ops", "Steps", "Framework Ops",
+                  "Framework Name Scope", "Source code")
+
 
 def event_instr_name(event_name: str) -> str:
-    """Instruction name from a profiler event name.
-
-    CPU PJRT emits bare names ("dot_general.1"); the TPU device plane
-    emits the whole instruction text ("%fusion.3 = s32[256]{...} ...").
-    Take the token before " = " (if any), then strip the "%" sigil and
-    any trailing type annotation after ":".
-    """
+    """Instruction name from a profiler event name ("%fusion.3 = s32[..]
+    ..." or a bare "fusion.3"): the token before " = ", without the "%"
+    sigil and any trailing type annotation after ":"."""
     head = event_name.split(" = ", 1)[0]
     return head.split(":")[0].strip().lstrip("%")
-
-
-def enabled() -> bool:
-    return os.environ.get("TURBO_TPU_PROFILE_SPLIT", "1") != "0"
 
 
 def hlo_scope_sets(hlo_text: str, scope: str = "fixpoint"):
@@ -80,7 +76,7 @@ def hlo_scope_sets(hlo_text: str, scope: str = "fixpoint"):
     return inside, outside, base_class
 
 
-def _classify(name: str, inside, outside, base_class) -> Optional[bool]:
+def classify(name: str, inside, outside, base_class) -> Optional[bool]:
     """True=fixpoint, False=other, None=unattributable."""
     if name in inside:
         return True
@@ -89,50 +85,32 @@ def _classify(name: str, inside, outside, base_class) -> Optional[bool]:
     return base_class.get(_SUFFIX_RE.sub("", name))
 
 
-def measure_fixpoint_fraction(run_chunk, hlo_text: str,
-                              reps: int = 2) -> Optional[float]:
-    """Execute `run_chunk()` `reps` times under the profiler and return
-    the device-time fraction spent in the "fixpoint" scope, or None
-    when nothing attributable was captured."""
-    import jax
-    from jax.profiler import ProfileData
-
-    inside, outside, base_class = hlo_scope_sets(hlo_text)
-    if not inside:
-        return None
-    d = tempfile.mkdtemp(prefix="turbo_tpu_prof_")
-    try:
-        with jax.profiler.trace(d):
-            for _ in range(reps):
-                run_chunk()
-        fix_ns = other_ns = 0
-        for f in glob.glob(d + "/**/*.xplane.pb", recursive=True):
-            pd = ProfileData.from_file(f)
-            for plane in pd.planes:
-                # Device planes on TPU/GPU; XLA executor lines on CPU.
-                is_dev = plane.name.startswith("/device:")
-                is_cpu = "CPU" in plane.name
-                if not (is_dev or is_cpu):
+def device_kernel_events(planes: Iterable):
+    """(hlo instruction name, duration ns) of every kernel event on the
+    GPU device planes of a trace. `planes` are ProfileData planes (or
+    any objects with the same name/lines/events/stats attributes)."""
+    for plane in planes:
+        if not plane.name.startswith("/device:GPU"):
+            continue
+        for line in plane.lines:
+            if line.name in _DERIVED_LINES:
+                continue
+            for e in line.events:
+                if e.duration_ns <= 0:
                     continue
-                for line in plane.lines:
-                    if is_cpu and not line.name.startswith("tf_"):
-                        continue  # python / compiler-pass lines
-                    if is_dev and line.name not in ("XLA Ops",):
-                        continue  # modules/async lines double-count
-                    for e in line.events:
-                        if e.duration_ns <= 0:
-                            continue
-                        name = event_instr_name(e.name)
-                        cls = _classify(name, inside, outside, base_class)
-                        if cls is True:
-                            fix_ns += e.duration_ns
-                        elif cls is False:
-                            other_ns += e.duration_ns
-        total = fix_ns + other_ns
-        if total <= 0:
-            return None
-        return fix_ns / total
-    except Exception:
-        return None
-    finally:
-        shutil.rmtree(d, ignore_errors=True)
+                op = dict(e.stats).get("hlo_op")
+                if op is None:
+                    continue  # memcpy/memset and runtime activity
+                yield event_instr_name(str(op)), e.duration_ns
+
+
+def split(planes: Iterable, hlo_text: str) -> Tuple[int, int, int]:
+    """(fixpoint ns, other ns, unattributed ns) of the kernel time on
+    the GPU device planes of a trace, against the optimized HLO text of
+    the traced program."""
+    inside, outside, base_class = hlo_scope_sets(hlo_text)
+    out = [0, 0, 0]
+    for name, dur in device_kernel_events(planes):
+        cls = classify(name, inside, outside, base_class)
+        out[0 if cls is True else 1 if cls is False else 2] += dur
+    return out[0], out[1], out[2]

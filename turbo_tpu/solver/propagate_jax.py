@@ -1,4 +1,4 @@
-"""Batched AC-1 interval propagation in JAX (XLA) for the TPU engine.
+"""Batched AC-1 interval propagation in JAX (XLA) for the device engine.
 
 The hot kernel of the framework: the equivalent of the reference's
 ``fp_engine.fixpoint([&](int i){ iprop.deduce(i); })`` inner loop
@@ -7,11 +7,11 @@ The hot kernel of the framework: the equivalent of the reference's
 
 Design (gather-only, no scatters):
   1. per op-group, gather x/y/z bounds and compute candidate intervals
-     for all three roles of every propagator (pure VPU work);
+     for all three roles of every propagator (elementwise work);
   2. combine candidates into variables via the plan's bucketed
      incidence tables: contiguous var ranges gather their candidate
-     slots and min/max-reduce — the TPU-first replacement for the
-     GPU's atomic scatter-min/max;
+     slots and min/max-reduce, in place of the reference's atomic
+     scatter-min/max;
   3. loop to fixpoint with a per-dive changed mask inside
      ``lax.while_loop``.
 
@@ -21,7 +21,6 @@ tests cross-check both on random stores.
 from __future__ import annotations
 
 import functools
-import os
 from typing import Tuple
 
 import jax
@@ -176,7 +175,7 @@ def _ask_group(op, lx, ux, ly, uy, lz, uz):
 class PropagatorKernels:
     """Compiled-in static tables + jit-compatible propagation functions."""
 
-    def __init__(self, plan: Plan, gather_mode: str = "take"):
+    def __init__(self, plan: Plan):
         self.plan = plan
         self.groups = [(op, jnp.asarray(xs), jnp.asarray(ys), jnp.asarray(zs))
                        for op, xs, ys, zs in plan.groups]
@@ -193,8 +192,7 @@ class PropagatorKernels:
         self.V = plan.V
         self.P = plan.P
         # Concatenated operand indices (group order): one gather per
-        # role per bound instead of one per (group, role) — gathers are
-        # the expensive op class on TPU, so consolidate them.
+        # role per bound instead of one per (group, role).
         if plan.groups:
             self.all_x = jnp.asarray(np.concatenate([g[1] for g in plan.groups]))
             self.all_y = jnp.asarray(np.concatenate([g[2] for g in plan.groups]))
@@ -204,34 +202,6 @@ class PropagatorKernels:
         for op, xs, _, _ in plan.groups:
             self.group_slices.append((op, base, base + len(xs)))
             base += len(xs)
-        # MXU one-hot role gathers (VERDICT r2 item 3: the role gathers
-        # are ~14% of measured sweep time; the wordpress TPU profile
-        # charges it to gather irregularity, not bandwidth). The gather
-        # indices are STATIC, so lb[:, all_x] is exactly lb @ G for a
-        # 0/1 selection matrix G (V, 3P) — and a selection matmul rides
-        # the 128x128 systolic array instead of the scalar gather unit.
-        # Exactness: store values are clamped to +-(2^30) (universe +
-        # root-box slack), so the 16-bit halves hi = v >> 16 in
-        # [-2^14, 2^14) and lo = v & 0xffff in [0, 2^16) are both exact
-        # in f32; each output column selects exactly ONE input (the
-        # other products are exact zeros), so the f32 accumulation is
-        # exact and the int32 recombine hi*2^16 + lo is lossless.
-        # Size-gated: the dense G costs 3*V*P f32, fine at headline
-        # scale (wordpress: ~2 MB/role) but hopeless at trains15 scale.
-        self.gather_mode = "take"
-        if gather_mode == "onehot" and plan.groups:
-            P3 = int(self.all_x.shape[0])
-            budget = float(os.environ.get("TURBO_TPU_ONEHOT_MAX_MB",
-                                          "128")) * 1e6
-            if 3 * 4.0 * plan.V * P3 <= budget:
-                def onehot(idx):
-                    g = np.zeros((plan.V, len(idx)), dtype=np.float32)
-                    g[np.asarray(idx), np.arange(len(idx))] = 1.0
-                    return jnp.asarray(g)
-                self._G_roles = tuple(
-                    onehot(np.concatenate([g[i] for g in plan.groups]))
-                    for i in (1, 2, 3))
-                self.gather_mode = "onehot"
         # Native element / membership tables (see plan.py).
         self.E = plan.E
         self.M = plan.M
@@ -244,16 +214,14 @@ class PropagatorKernels:
                             for bk in plan.lin_buckets]
         # Static per-bucket flag: all coefficients in {-1, 0, +1}.
         # For unit coefficients floor(R/c) == ceil(R/c) == R*c, so the
-        # int64 floor_divide + remainder-correction chains (the hottest
-        # ops in the wordpress TPU profile: ~30% of leaf device time on
-        # emulated 64-bit division) collapse to one multiply.
+        # int64 floor_divide + remainder-correction chains collapse to
+        # one multiply.
         self.lin_unit = [bool(np.all(np.abs(bk[3]) <= 1))
                          for bk in plan.lin_buckets]
         # Root-box store clamp (see _clamp_store): with every store
         # plane bounded by the root box +/-1, per-bucket *static* sum
-        # bounds can prove the whole linear kernel fits int32 - the
-        # TPU VPU is a 32-bit machine, so skipping the emulated int64
-        # mul/div/sum chains roughly halves the linear sweep cost.
+        # bounds can prove the whole linear kernel fits int32, which
+        # skips the int64 mul/div/sum chains.
         self._lb_floor = jnp.asarray(plan.lb0) - 1   # ub clamp floor
         self._ub_cap = jnp.asarray(plan.ub0) + 1     # lb clamp ceiling
         vmax = np.maximum(np.abs(plan.lb0.astype(np.int64)),
@@ -284,9 +252,8 @@ class PropagatorKernels:
             self.m_base = jnp.asarray(plan.m_base)
             self.m_top = jnp.asarray(plan.m_top)
             # Row tables flattened for single-gather row lookups: a
-            # (D, M) index into the flat (M*W) table replaces the
-            # (D, M, W) broadcast + take_along_axis the TPU would
-            # otherwise materialize.
+            # (D, M) index into the flat (M*W) table replaces a
+            # (D, M, W) broadcast + take_along_axis.
             M_ = plan.m_cnt.shape[0]
             self.m_W = plan.m_cnt.shape[1] - 1
             self.m_cnt_flat = jnp.asarray(plan.m_cnt.reshape(-1))
@@ -301,32 +268,8 @@ class PropagatorKernels:
 
     SUM_CLAMP = 1 << 40
 
-    def _onehot_take(self, plane, G, transposed: bool = False):
-        """Exact int32 static gather as two f32 one-hot matmuls (see
-        __init__). Precision.HIGHEST keeps the TPU matmul at full f32
-        fidelity (the default would round operands to bf16); the values
-        moved are < 2^16 so even the 3-pass decomposition is exact, but
-        HIGHEST removes any toolchain dependence."""
-        hi = jnp.right_shift(plane, 16).astype(jnp.float32)
-        lo = jnp.bitwise_and(plane, 0xffff).astype(jnp.float32)
-        prec = jax.lax.Precision.HIGHEST
-        if transposed:  # plane (V, D) -> (3P, D); G.T constant-folds
-            mh = jnp.matmul(G.T, hi, precision=prec)
-            ml = jnp.matmul(G.T, lo, precision=prec)
-        else:           # plane (D, V) -> (D, 3P)
-            mh = jnp.matmul(hi, G, precision=prec)
-            ml = jnp.matmul(lo, G, precision=prec)
-        return mh.astype(I32) * 65536 + ml.astype(I32)
-
     def _role_gathers(self, lb, ub, transposed: bool = False):
-        """The six per-sweep role gathers (lb/ub x operand role),
-        either as plain takes or as MXU one-hot matmuls."""
-        if self.gather_mode == "onehot":
-            Gx, Gy, Gz = self._G_roles
-            t = transposed
-            return (self._onehot_take(lb, Gx, t), self._onehot_take(ub, Gx, t),
-                    self._onehot_take(lb, Gy, t), self._onehot_take(ub, Gy, t),
-                    self._onehot_take(lb, Gz, t), self._onehot_take(ub, Gz, t))
+        """The six per-sweep role gathers (lb/ub x operand role)."""
         if transposed:
             return (lb[self.all_x], ub[self.all_x], lb[self.all_y],
                     ub[self.all_y], lb[self.all_z], ub[self.all_z])
@@ -339,7 +282,7 @@ class PropagatorKernels:
         coefficients are 0/±1, enabling the division-free path.
         `fit32` (static): the root-box bound proves every term sum and
         slack fits int32 (see __init__), so the whole bucket runs in
-        native 32-bit VPU arithmetic with no saturating clamp."""
+        native 32-bit arithmetic with no saturating clamp."""
         l_b, l_op, l_rhs, l_coef, l_var = lbk
         DT = I32 if fit32 else I64
         D = lb.shape[0]
@@ -443,8 +386,8 @@ class PropagatorKernels:
                  (j < self.e_len[None, :, None])
         ok = in_win & (tab >= lr) & (tab <= ur)
         # First/last valid position as masked-iota min/max reductions
-        # (cheaper on TPU than any+argmax+reverse+argmax): no-candidate
-        # windows resolve to INF / NINF after the +1 shift.
+        # (one reduction each instead of any+argmax+reverse+argmax):
+        # no-candidate windows resolve to INF / NINF after the +1 shift.
         idx_lo = jnp.where(ok, j, INF - 1).min(axis=2) + 1
         idx_hi = jnp.where(ok, j, NINF - 1).max(axis=2) + 1
         res_lo = jnp.where(ok, tab, INF).min(axis=2)
@@ -536,8 +479,7 @@ class PropagatorKernels:
         # rule compute on static slices (pure elementwise, fuses).
         LX, UX, LY, UY, LZ, UZ = self._role_gathers(lb, ub)
         # Role-major candidate layout (see plan.py): a plain concat of
-        # per-group outputs; interleaved layouts cost XLA-TPU an
-        # enormous layout-assignment blowup.
+        # per-group outputs.
         xls, yls, zls, xus, yus, zus = [], [], [], [], [], []
         for op, a, b in self.group_slices:
             cxl, cxu, cyl, cyu, czl, czu = _deduce_group(
@@ -603,13 +545,10 @@ class PropagatorKernels:
     # -- transposed-plane (V, D) sweep --------------------------------
     #
     # Identical semantics to `iteration`, but every plane/candidate
-    # array is (V, D) / (C, D) with the dive axis minor. XLA's layout
-    # assignment already prefers dive-minor storage for the gather
-    # operands inside the fixpoint loop; expressing the sweep in that
-    # layout natively removes the per-iteration transposing
-    # dynamic-update-slice fusions the (D, V) form pays when the
-    # candidate planes are assembled (measured ~35% of sweep time on
-    # wordpress, DESIGN.md TPU profile).
+    # array is (V, D) / (C, D) with the dive axis minor, so the
+    # candidate planes are assembled without transposing copies when
+    # XLA's layout assignment picks dive-minor storage for the gather
+    # operands inside the fixpoint loop.
 
     def _element_cands_t(self, lbT, ubT):
         li = lbT[self.e_idx]                        # (E, D)
@@ -816,7 +755,7 @@ class PropagatorKernels:
         """Run op-group `gi` to a local fixpoint (capped), scatter-meet
         updates directly into the store so later groups see them.
 
-        The TPU analog of the reference's warp fixpoint
+        The analog of the reference's warp fixpoint
         (`warp_fixpoint`, barebones_dive_and_solve.hpp:955 /
         fixpoint.hpp WAC1): a warp's 32 propagators iterate to local
         convergence before the next warp runs; here the "warp" is an
@@ -918,18 +857,14 @@ class PropagatorKernels:
         `max_iters` (empty when the loop converged). The per-step cost
         of this while loop is its TRIP count — the max over lanes of
         sweeps-to-convergence — while the useful work is the sum, so a
-        tight cap buys a multiple in step rate (pat13 chip A/B: 24.7
-        steps/s at cap 16 vs 93.4 at cap 2). The engine HOLDS unconv
+        tight cap can buy a multiple in step rate. The engine HOLDS unconv
         lanes (no branch, no node count) so a tight cap never inflates
         the search tree: a held lane just spends another step's sweeps
         before it is classified (engine.step II/IV).
 
-        `unroll` sweeps run inside each while iteration: on the TPU a
-        while-loop iteration carries a large fixed overhead (separate
-        body launches, no cross-iteration fusion, a 24 MB convergence
-        compare per sweep — measured ~10x the cost of the same sweep
-        unrolled, round 3), so amortizing it over K sweeps cuts
-        per-node latency several-fold. Semantics stay the exact
+        `unroll` sweeps run inside each while iteration, amortizing a
+        while-loop iteration's fixed overhead (body launches, the
+        convergence test) over K sweeps. Semantics stay the exact
         fixpoint: sweeps are monotone and idempotent at the fixpoint,
         so overshooting a converged lane by <K sweeps changes nothing;
         the convergence check still gates exit."""

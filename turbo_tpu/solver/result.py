@@ -36,6 +36,11 @@ class EngineResult:
     solve_time: float = 0.0
     best_obj_time: float = 0.0
     init_time: float = 0.0
+    # Set-up inside solve() before the timed window: state init, the
+    # step program's XLA compile, and the first (warm-up) chunk.
+    warmup_time: float = 0.0
+    compile_time: float = 0.0      # XLA compile of the step program
+    host_nodes: Optional[list] = None  # multi-host: nodes per process
     # Per-phase timers (statistics.hpp:13-29; populated by
     # solver.timers.PhaseTimers, block-averaged like the reference's
     # print_block_timing_stat).

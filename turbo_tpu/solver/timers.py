@@ -50,9 +50,6 @@ class PhaseTimers:
     first_idle: Optional[float] = None
     dive_steps: int = 0
     act_steps: int = 0
-    # Profiler-measured fixpoint fraction of device time (solver/
-    # profile_split.py); when set, it overrides the LSQ fit below.
-    measured_fix_frac: Optional[float] = None
     _samples: List[Tuple[int, float]] = dataclasses.field(default_factory=list)
     _last_fpit: int = 0
 
@@ -81,11 +78,8 @@ class PhaseTimers:
     # -- attribution ---------------------------------------------------
 
     def fixpoint_search_split(self) -> Tuple[float, float]:
-        """(fixpoint_time, search_time): profiler-measured split when
-        available, else the regression fit (see module docstring)."""
-        if self.measured_fix_frac is not None:
-            fix = self.measured_fix_frac * self.device_time
-            return fix, self.device_time - fix
+        """(fixpoint_time, search_time) from the regression fit (see
+        module docstring)."""
         if not self._samples:
             return 0.0, 0.0
         xs = np.array([s[0] for s in self._samples], dtype=np.float64)
@@ -114,7 +108,6 @@ class PhaseTimers:
         statistics.hpp:338-371)."""
         fixpoint, search = self.fixpoint_search_split()
         D = max(self.num_lanes, 1)
-        res.timer_split_measured = self.measured_fix_frac is not None
         res.num_blocks = self.num_lanes
         res.search_time = search / D
         res.fixpoint_time = fixpoint / D

@@ -7,6 +7,7 @@ golden-objective regression harness (test_turbo.sh) but per-solution.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, List
 
 from ..frontend.ast import Constraint, Model, Range, SetLit
@@ -194,3 +195,90 @@ def check_solution(model: Model, tnf, best_lb) -> List[str]:
         except CheckError as e:
             bad.append(f"cannot check {c.name}: {e}")
     return bad
+
+
+_SOL_LINE = re.compile(
+    r"^(\w+) = (?:array\d+d\([^\[]*\[(.*)\]\)|(-?\d+|true|false));$")
+
+
+def parse_printed_solutions(model: Model, text: str) -> List[Dict[str, int]]:
+    """The solutions in a solver's standard output (each block ends with
+    `----------`), as {variable name: value} over the output variables
+    and the elements of the output arrays."""
+    arrays = {a.name: a for a in model.arrays}
+    sols, cur = [], {}
+
+    def num(s):
+        s = s.strip()
+        return {"true": 1, "false": 0}[s] if s in ("true", "false") \
+            else int(s)
+
+    for line in text.splitlines():
+        if line == "----------":
+            sols.append(cur)
+            cur = {}
+            continue
+        m = _SOL_LINE.match(line.strip())
+        if not m:
+            continue
+        name, arr, scalar = m.groups()
+        if scalar is not None:
+            cur[name] = num(scalar)
+        elif name in arrays:
+            vals = [num(x) for x in arr.split(",")] if arr.strip() else []
+            for e, x in zip(arrays[name].elems, vals):
+                if isinstance(e, str):
+                    cur[e] = x
+    return sols
+
+
+def complete_defined(model: Model, values: Dict[str, int]) -> Dict[str, int]:
+    """Extend a partial assignment with the variables that an
+    `int_lin_eq ... :: defines_var(v)` constraint fixes (the introduced
+    variables of a flattened model, which a solver does not print)."""
+    values = dict(values)
+    ck = Checker(model, values)
+    progress = True
+    while progress:
+        progress = False
+        for c in model.constraints:
+            v = c.defines
+            if v is None or v in values or c.name != "int_lin_eq":
+                continue
+            cs, xs = ck.vals(c.args[0]), c.args[1]
+            names = (ck.arrays[xs].elems if isinstance(xs, str) else xs)
+            if sum(1 for x in names if x == v) != 1:
+                continue
+            rest, coef = 0, None
+            try:
+                for ci, x in zip(cs, names):
+                    if x == v:
+                        coef = ci
+                    else:
+                        rest += ci * ck.val(x)
+            except CheckError:
+                continue  # an operand is not known yet
+            q, r = divmod(ck.val(c.args[2]) - rest, coef)
+            if r == 0:
+                values[v] = q
+                progress = True
+    return values
+
+
+def check_printed(model: Model, text: str) -> List[List[str]]:
+    """Check every solution a solver printed against the model. Returns
+    one list of violations per solution (all empty = all valid)."""
+    out = []
+    for sol in parse_printed_solutions(model, text):
+        values = complete_defined(model, sol)
+        ck = Checker(model, values)
+        bad = [f"{vd.name} has no value" for vd in model.vars
+               if vd.name not in values]
+        for c in model.constraints:
+            try:
+                if not ck.holds(c):
+                    bad.append(f"violated {c.name}{c.args!r}"[:200])
+            except CheckError as e:
+                bad.append(f"cannot check {c.name}: {e}")
+        out.append(bad)
+    return out

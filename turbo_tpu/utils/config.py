@@ -2,10 +2,12 @@
 
 The accepted flags follow the reference's `parse_args`
 (src/config.cpp:128-220; usage text at src/config.cpp:11-44) so the
-solver is a drop-in for MiniZinc `.msc` integration, plus TPU-specific
-extras. Arch names: `cpu` = sequential oracle; `tpu` (alias
-`barebones`, `gpu`) = batched dive-and-solve on the accelerator;
-`multi` = dive batch sharded over all visible devices.
+solver is a drop-in for MiniZinc `.msc` integration, plus a few
+extras. Arch names: `cpu` = sequential oracle; `barebones` (aliases
+`gpu` and `tpu`, the latter kept for existing scripts) = batched
+dive-and-solve on the device; `hybrid` = host-owned
+search with device-batched propagation; `multi` = dive batch sharded
+over all visible devices.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import Optional
 @dataclasses.dataclass
 class Configuration:
     problem_path: str = ""
-    arch: str = "tpu"
+    arch: str = "barebones"
     timeout_ms: int = 0                  # 0 = no timeout (-t)
     print_all_solutions: bool = False    # -a
     stop_after_n_solutions: int = 1      # -n
@@ -38,7 +40,7 @@ class Configuration:
     eps_var_order: str = "default"
     eps_value_order: str = "default"
     disable_simplify: bool = False
-    shave: bool = False                  # (TPU extra) root shaving presolve
+    shave: bool = False                  # (extra) root shaving presolve
     force_ternarize: bool = False
     disable_network_analysis: bool = False
     checkpoint_path: str = ""
@@ -46,12 +48,11 @@ class Configuration:
     wac1_threshold: int = 0              # -wac1_threshold
     version_tag: str = ""                # -version (echo-only, config.cpp:36)
     hardware: str = ""                   # -hardware (echo-only, config.cpp:37)
-    platform: str = ""                   # -platform (TPU extra): force the
-                                         # jax platform; empty = probe the
-                                         # default with a hang watchdog
-    only_global_memory: bool = False     # -globalmem (no-op on TPU: there is
-                                         # no shared-vs-global placement axis)
-    # Multi-host EPS (TPU extras; the reference scales past one GPU via
+    platform: str = ""                   # -platform (extra): pin the jax
+                                         # platform; empty = JAX's default
+    only_global_memory: bool = False     # -globalmem (no-op: XLA places
+                                         # every buffer in device memory)
+    # Multi-host EPS (extras; the reference scales past one GPU via
     # SLURM job arrays, hpc/run-helios.sh — here one solver spans hosts
     # over jax.distributed, parallel/multihost.py).
     hosts: int = 1                       # -hosts (processes in the run)
@@ -62,7 +63,7 @@ class Configuration:
 def parse_args(argv=None) -> Configuration:
     p = argparse.ArgumentParser(
         prog="turbo-tpu",
-        description="TPU-native FlatZinc constraint solver "
+        description="FlatZinc constraint solver in JAX "
                     "(propagate-and-search, EPS dive-and-solve)")
     p.add_argument("problem", help="path to .fzn model")
     p.add_argument("-t", type=int, default=0, metavar="MS",
@@ -81,8 +82,9 @@ def parse_args(argv=None) -> Configuration:
     p.add_argument("-s", action="store_true", help="print statistics")
     p.add_argument("-v", action="count", default=0, help="verbose (repeatable)")
     p.add_argument("-ast", action="store_true", help="print the parsed model")
-    p.add_argument("-arch", default="tpu",
-                   choices=["cpu", "tpu", "barebones", "gpu", "hybrid", "multi"],
+    p.add_argument("-arch", default="barebones",
+                   choices=["cpu", "barebones", "gpu", "tpu", "hybrid",
+                            "multi"],
                    help="solver architecture")
     p.add_argument("-or", dest="or_nodes", type=int, default=None,
                    help="parallel dives per device (GPU blocks analog); "
@@ -113,23 +115,22 @@ def parse_args(argv=None) -> Configuration:
                         "(config.cpp:28)")
     p.add_argument("-disable_simplify", action="store_true")
     p.add_argument("-shave", action="store_true",
-                   help="enable the root bound-shaving presolve (TPU "
-                        "extra; measured no-op on the golden proofs - "
-                        "see DESIGN.md - so off by default)")
+                   help="enable the root bound-shaving presolve "
+                        "(extra; off by default)")
     p.add_argument("-force_ternarize", action="store_true")
     p.add_argument("-disable_network_analysis", action="store_true")
     p.add_argument("-globalmem", action="store_true",
-                   help="accepted for compatibility (config.cpp:43); no "
-                        "shared-vs-global memory axis exists on TPU")
+                   help="accepted for compatibility (config.cpp:43); "
+                        "XLA places every buffer in device memory")
     p.add_argument("-hardware", default="", metavar="DESC",
                    help='hardware description echoed in statistics '
-                        '("CPU;RAM;TPU", config.cpp:37)')
+                        '("CPU;RAM;GPU", config.cpp:37)')
     p.add_argument("-checkpoint", default="", metavar="PATH",
                    help="periodically save search state; resume if PATH exists")
     p.add_argument("-platform", default="", metavar="NAME",
-                   help="force the jax platform (e.g. cpu); empty = use "
-                        "the environment default, probed with a hang "
-                        "watchdog (TURBO_TPU_PLATFORM env equivalent)")
+                   help="pin the jax platform (e.g. cpu, gpu); empty = "
+                        "JAX's default. An unknown or unavailable platform "
+                        "is an error")
     p.add_argument("-hosts", type=int,
                    default=int(os.environ.get("TURBO_TPU_HOSTS", "1")),
                    metavar="N",
@@ -156,7 +157,7 @@ def parse_args(argv=None) -> Configuration:
         p.error("the options -or and -p cannot be used at the same time")
     or_nodes = a.or_nodes if a.or_nodes is not None else \
         (a.and_nodes if a.and_nodes is not None else 0)
-    arch = {"barebones": "tpu", "gpu": "tpu"}.get(a.arch, a.arch)
+    arch = {"gpu": "barebones", "tpu": "barebones"}.get(a.arch, a.arch)
     return Configuration(
         problem_path=a.problem, arch=arch,
         timeout_ms=(a.timeout if a.timeout is not None else a.t),

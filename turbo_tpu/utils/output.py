@@ -86,6 +86,12 @@ def print_mzn_statistics(stats: MznStats, r, config=None):
     stats.stat("peakDepth", r.depth_max)
     stats.stat("initTime", getattr(r, "init_time", 0.0))
     stats.stat("solveTime", r.solve_time)
+    if getattr(r, "compile_time", 0.0) > 0.0:
+        # XLA compile of the step program (part of initTime).
+        stats.stat("compileTime", f"{r.compile_time:.3f}")
+    if getattr(r, "host_nodes", None):
+        # Multi-host runs: each process's own node count, in pid order.
+        stats.stat("host_nodes", '"' + ",".join(map(str, r.host_nodes)) + '"')
     stats.stat("num_solutions", r.solutions)
     stats.stat("eps_num_subproblems", r.eps_num_subproblems)
     stats.stat("eps_solved_subproblems", r.eps_solved_subproblems)
